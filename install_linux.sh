@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # LatticeUrbanWind-TPU installer: runs the staged scripts in installer/ in
 # numeric-prefix order and reports a summary.  (reference: install_linux.sh —
-# same staged contract, re-targeted at the TPU/JAX stack: env detection,
+# same staged contract, re-targeted at the JAX stack: env detection,
 # PATH setup, dependency check, native-helper compile, solver smoke test.)
 set -u -o pipefail
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
 # Stage 0: environment detection (reference: installer/0_detect_env.sh).
-# Probes python, JAX, and the accelerator (TPU/CPU) via the luwenv tool.
+# Probes python, JAX, and the accelerator (GPU/CPU) via the luwenv tool.
 set -u
 LUW_HOME=$(cd "$(dirname "$0")/.." && pwd)
 echo "LUW_HOME = $LUW_HOME"

@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
 # Stage 3: native helper build (reference: installer/3_compile_cfdcore.sh).
-# The TPU compute core is JIT-compiled by XLA at run time; the native C++
+# The compute core is JIT-compiled by XLA at run time; the native C++
 # helpers (voxelizer, VTK encoder) are built here ahead of time.
 set -u
 LUW_HOME=$(cd "$(dirname "$0")/.." && pwd)

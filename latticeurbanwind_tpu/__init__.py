@@ -1,42 +1,11 @@
-"""LatticeUrbanWind-TPU: a TPU-native urban micrometeorology LES framework.
+"""LatticeUrbanWind-TPU: an urban micrometeorology LES framework in JAX.
 
-Clean-room, TPU-first (JAX / Pallas / shard_map) implementation of the
-capabilities of the reference LatticeUrbanWind platform: mesoscale-NWP-coupled
-lattice-Boltzmann LES over voxelized city geometry, with the same deck/config
-contract, file formats, and run modes — but engineered for TPU hardware
-(bf16/fp16 DDF storage with fp32 compute, XLA-fused streaming, ICI halo
-exchange over a 3-D device mesh).
+Clean-room JAX implementation of the capabilities of the reference
+LatticeUrbanWind platform: mesoscale-NWP-coupled lattice-Boltzmann LES over
+voxelized city geometry, with the same deck/config contract, file formats,
+and run modes.  The step runs as XLA-fused jnp or as one fused GPU kernel
+(Pallas, Triton route), with 16-bit DDF storage and fp32 arithmetic; an
+`n_gpu` split shards the lattice over a device mesh.
 """
 
 __version__ = "0.2.0"
-
-
-def _enable_compile_cache() -> None:
-    """Default JAX's persistent compilation cache to a user-level directory.
-
-    Production grids take minutes to compile cold (the Mosaic kernel alone
-    is ~3-4 min on hosted chips); the cache makes every later process start
-    in seconds.  Implemented purely through environment defaults — jax is
-    NOT imported here (pre/post CLI tools stay light), an explicit
-    JAX_COMPILATION_CACHE_DIR wins, a host app's programmatic
-    jax.config.update is untouched, and LUW_NO_COMPILE_CACHE=1 opts out.
-    """
-    import os
-
-    if os.environ.get("LUW_NO_COMPILE_CACHE"):
-        return
-    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-        return
-    try:
-        path = os.path.join(
-            os.environ.get("XDG_CACHE_HOME",
-                           os.path.expanduser("~/.cache")), "luw_jax")
-        os.makedirs(path, exist_ok=True)
-        os.environ["JAX_COMPILATION_CACHE_DIR"] = path
-        os.environ.setdefault(
-            "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1.0")
-    except OSError:
-        pass
-
-
-_enable_compile_cache()

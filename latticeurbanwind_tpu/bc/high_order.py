@@ -16,8 +16,7 @@ Clean-room equivalent of the reference KNNInterpolatorHD
      mean; no in-plane samples -> zero.
 
 Vectorized: per plane, distances are one (Q_plane, S_plane) product, top-K a
-partition, and the 6x6 solves are batched — MXU-shaped on TPU, numpy
-otherwise.
+partition, and the 6x6 solves are batched.
 """
 
 from __future__ import annotations

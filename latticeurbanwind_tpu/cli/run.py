@@ -1,6 +1,6 @@
 """runluw — run the solver on a deck (.luw / .luwdg / .luwpf).
 
-TPU-native replacement for the reference's FluidX3D binary launch
+Replacement for the reference's FluidX3D binary launch
 (reference: bin/runluw.ps1, submit_cfd_silent.sh).  Checks the validation
 gate the same way the solver does (setup.cpp:3446-3475) — refusing to run
 unless `validation = pass` or --force is given.
@@ -18,7 +18,9 @@ def main(argv=None) -> int:
     parser.add_argument("deck", help="path to conf.luw / .luwdg / .luwpf")
     parser.add_argument("--impl", default="auto",
                         choices=["auto", "reference", "pallas"],
-                        help="compute-path implementation")
+                        help="step tier: auto (the fused kernel on a GPU, "
+                             "else jnp), reference (jnp), pallas (the fused "
+                             "kernel; fails off a GPU)")
     parser.add_argument("--force", action="store_true",
                         help="skip the prerun validation gate")
     parser.add_argument("--max-cases", type=int, default=0,

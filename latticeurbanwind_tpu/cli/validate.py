@@ -2,7 +2,8 @@
 
 Cross-checks the case STL bounding box against the SurfData CSV extents
 (0.1% XY tolerance), fills missing deck fields (datetime, n_gpu,
-mesh_control, gpu_memory from the TPU HBM capacity instead of nvidia-smi),
+mesh_control, gpu_memory from the device memory JAX reports instead of
+nvidia-smi),
 and writes `validation = pass|error` back into the deck — the flag the
 solver re-checks before running.  (reference: tools_core/prerunValidate.py)
 """
@@ -21,16 +22,17 @@ TOL = 1e-3  # 0.1 %
 
 
 def default_memory_mib() -> int:
-    """85% of the accelerator HBM, in MiB (TPU analog of the nvidia-smi probe)."""
-    try:
-        import jax
-        from jax.experimental.pallas import tpu as pltpu
+    """85% of the device memory JAX may use, in MiB (analog of the
+    reference's nvidia-smi probe).  A host with no accelerator gets the
+    deck default of 20000 MiB, and says so."""
+    import jax
 
-        if jax.default_backend() == "tpu":
-            info = pltpu.get_tpu_info()
-            return int(info.hbm_capacity_bytes * 0.85 / (1024 * 1024))
-    except Exception:
-        pass
+    if jax.default_backend() != "cpu":
+        limit = (jax.devices()[0].memory_stats() or {}).get("bytes_limit")
+        if limit:
+            return int(limit * 0.85 / (1024 * 1024))
+    print("| luwval          | no accelerator memory reported; "
+          "gpu_memory defaults to 20000 MiB")
     return 20000
 
 

@@ -179,7 +179,7 @@ FIELDS: Tuple[FieldSpec, ...] = (
     FieldSpec("downstream_bc_yaw", "float", "generated", "Downstream yaw", "Computed downstream yaw angle."),
     # CFD Controls
     FieldSpec("n_gpu", "uint_triplet", "cfd", "Chip split",
-              "Device-split triplet [Dx,Dy,Dz]; maps to the TPU mesh shape."),
+              "Device-split triplet [Dx,Dy,Dz]; maps to the device mesh shape."),
     FieldSpec("mesh_control", "enum", "cfd", "Mesh control",
               "Size the grid from a memory budget or an explicit cell size.",
               ("gpu_memory", "cell_size"), quoted=True),
@@ -194,11 +194,11 @@ FIELDS: Tuple[FieldSpec, ...] = (
               "Treat the downstream face as an open outlet."),
     FieldSpec("run_nstep", "integer", "cfd", "Run steps override", "Override solver run length in steps."),
     FieldSpec("lbm_storage", "enum", "cfd", "DDF storage codec",
-              "DDF precision: bf16 (TPU-native, default), fp16c (the "
+              "DDF precision: bf16 (default), fp16c (the "
               "reference's 1-4-11 custom float), f16 (FP16S analog), f32.",
               ("bf16", "fp16c", "f16", "f32")),
     FieldSpec("case_parallel", "boolean", "cfd", "Case-parallel batches",
-              "TPU extension: run .luwdg/.luwpf batch cases in parallel, "
+              "Extension: run .luwdg/.luwpf batch cases in parallel, "
               "one case per device over the mesh (run/batch.py)."),
     FieldSpec("research_output", "integer", "cfd", "Research output stride", "Research snapshot cadence."),
     # Output & Probes
@@ -215,14 +215,14 @@ FIELDS: Tuple[FieldSpec, ...] = (
     # Physics
     FieldSpec("coriolis_term", "boolean", "physics", "Coriolis term", "Enable the Coriolis source term."),
     FieldSpec("ground_z0", "float", "physics", "Ground roughness length",
-              "TPU extension: aerodynamic roughness z0 (m) of horizontal "
+              "Extension: aerodynamic roughness z0 (m) of horizontal "
               "solid faces.  >0 enables the LES wall model (specular "
               "ground streaming + Schumann log-law shear stress) — removes "
               "the stair-step bounce-back's artificial O(cell) roughness "
               "on coarse urban grids.  0 (default) keeps plain bounce-back "
               "(reference parity)."),
     FieldSpec("building_z0", "float", "physics", "Building-wall roughness",
-              "TPU extension (needs ground_z0 > 0): roughness z0 (m) of "
+              "Extension (needs ground_z0 > 0): roughness z0 (m) of "
               "VERTICAL solid faces.  >0 enables the side wall model "
               "(specular x/y streaming + tangential Schumann stress) — at "
               "2-4 m cells stair-step bounce-back imposes ~O(cell) "

@@ -2,7 +2,7 @@
 
 The reference voxelizes on GPU by per-cell ray casting with triangle parity
 counting (reference: kernel.cpp:2381-2478, host driver lbm.cpp:494-606).  The
-TPU-native equivalent is column parity: for every (x, y) lattice column, cast
+equivalent here is column parity: for every (x, y) lattice column, cast
 a vertical ray, collect triangle crossings of the column center, sort the
 crossing heights, and mark cells whose center lies inside an odd-parity
 interval.  This is exact for watertight meshes (the only kind the pipeline

@@ -830,23 +830,28 @@ class Studio:
         return png.read_bytes()
 
     def api_env(self, q) -> dict:
-        """Startup diagnostics (reference StartupDiagnostics.cpp)."""
-        info = {"python": sys.version.split()[0], "root": str(self.root)}
-        try:
-            import jax
+        """Startup diagnostics (reference StartupDiagnostics.cpp).
 
-            info["jax"] = jax.__version__
-            info["backend"] = jax.default_backend()
-            info["devices"] = [str(d) for d in jax.devices()]
-        except Exception as e:   # noqa: BLE001 — diagnostics must not crash
+        The device probe runs in a child process that allocates on demand
+        and exits: the server itself never opens the accelerator, whose
+        memory belongs to the solver jobs it launches."""
+        info = {"python": sys.version.split()[0], "root": str(self.root)}
+        import os
+
+        env = dict(os.environ, XLA_PYTHON_CLIENT_PREALLOCATE="false")
+        try:
+            out = subprocess.run(
+                [sys.executable, "-m", "latticeurbanwind_tpu.utils.accelerator"],
+                env=env, capture_output=True, text=True, timeout=120,
+                check=True)
+            info.update(json.loads(out.stdout))
+        except (subprocess.SubprocessError, ValueError) as e:
             info["jax_error"] = str(e)
         for mod in ("numpy", "scipy", "matplotlib", "pandas"):
             try:
                 info[mod] = __import__(mod).__version__
             except ImportError:
                 info[mod] = None
-        from ..ops.stream_collide import pallas_supported  # noqa: F401
-        info["pallas_tier"] = True
         return info
 
 

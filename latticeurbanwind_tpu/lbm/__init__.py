@@ -1,29 +1,3 @@
-def _default_compile_cache() -> None:
-    """Complement the package-level env default for processes that imported
-    jax BEFORE this package (env vars are read at jax import): set the
-    config programmatically, but never override an explicit env var, a
-    host app's prior jax.config.update, or LUW_NO_COMPILE_CACHE=1."""
-    import os
-
-    if os.environ.get("LUW_NO_COMPILE_CACHE"):
-        return
-    try:
-        import jax
-
-        if jax.config.jax_compilation_cache_dir is not None:
-            return       # programmatic setting (or env read at jax import)
-        path = os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
-            os.environ.get("XDG_CACHE_HOME",
-                           os.path.expanduser("~/.cache")), "luw_jax")
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-
-
-_default_compile_cache()
-
 from .lattice import (
     C19, C7, CS, CS2, OPP19, OPP7, SMAGORINSKY_FACTOR, W19, W7,
     check_lattice_integrity, omega_from_nu, omega_t_from_alpha, tau_from_nu,

@@ -12,13 +12,12 @@ from __future__ import annotations
 
 import numpy as np
 
-# D3Q19 in cz-grouped order — a TPU-native renumbering of the standard set:
+# D3Q19 in cz-grouped order — a renumbering of the standard set:
 #   dirs 0..8   : cz = 0   (rest, x/y axes, xy diagonals)
 #   dirs 9..13  : cz = +1
 #   dirs 14..18 : cz = -1, arranged so OPP(9+k) = 14+k.
-# Grouping by the z-component lets the Pallas z-plane kernel fetch each
-# direction's plane exactly once (group cz=+1 streams from z-1, cz=-1 from
-# z+1, cz=0 from the own plane).  Physics is invariant under renumbering.
+# The order is part of the stored state (the DDF axis of checkpoints);
+# physics is invariant under renumbering.
 # C19[i] = (cx, cy, cz)
 C19 = np.array(
     [
@@ -47,11 +46,6 @@ OPP19 = np.array(
     [int(np.where((C19 == -C19[i]).all(axis=1))[0][0]) for i in range(19)],
     dtype=np.int32,
 )
-
-# Index ranges of the cz groups (contiguous by construction).
-GROUP0 = slice(0, 9)     # cz = 0
-GROUP_P = slice(9, 14)   # cz = +1
-GROUP_M = slice(14, 19)  # cz = -1
 
 # D3Q7 thermal sub-lattice, same grouping: 0..4 cz=0, 5 cz=+1, 6 cz=-1.
 C7 = np.array(

@@ -13,9 +13,9 @@ array program:
   -> SRT/TRT collision -> storage encode.
 
 Everything is dense masked arithmetic (`jnp.where`), no data-dependent control
-flow — XLA fuses the whole step into a handful of HBM-bandwidth-bound loops.
-This tier favors clarity and exactness; the Pallas tier (ops/) reproduces it
-block-wise at speed-of-light.
+flow; XLA fuses it into a few bandwidth-bound loops.  This tier favors
+clarity and exactness; the GPU kernel (ops/stream_collide.py) reproduces it
+per cell and is tested against it.
 
 Parity notes vs the reference kernel:
   * double-buffered pull streaming replaces Esoteric-Pull (same physics; the
@@ -198,7 +198,7 @@ def make_step(config: StepConfig, forcing: Forcing = Forcing()):
     """Build the single-step update function `step(state, dyn) -> state`.
 
     `config.volume_force=False` compiles the Guo forcing path out, exactly
-    like the pallas tier (and the reference's VOLUME_FORCE-off build,
+    like the GPU kernel (and the reference's VOLUME_FORCE-off build,
     defines.hpp) — `dyn.force`/`dyn.omega_coriolis` are then ignored, so the
     build refuses configurations that would need them (nudge/sponge/thermal),
     keeping the two tiers equivalent by construction."""

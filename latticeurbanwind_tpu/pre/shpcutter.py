@@ -21,6 +21,18 @@ from ..deck import load_deck
 from ..cli.inspect_tools import resolve_shp_path
 
 
+def _points_in_ring(ring: np.ndarray, pts: np.ndarray) -> np.ndarray:
+    """Even-odd (ray-crossing) test of (P, 2) points against a closed
+    (E, 2) polygon ring; points on an edge count either way."""
+    x, y = pts[:, 0:1], pts[:, 1:2]                        # (P, 1)
+    x0, y0 = ring[:, 0], ring[:, 1]                        # (E,)
+    x1, y1 = np.roll(x0, -1), np.roll(y0, -1)
+    straddle = (y0 > y) != (y1 > y)                        # (P, E)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        xc = x0 + (y - y0) * (x1 - x0) / (y1 - y0)
+    return (straddle & (x < xc)).sum(axis=1) % 2 == 1
+
+
 def _height_column(gdf, explicit: str):
     cols = [c for c in gdf.columns if c != "geometry"]
     if explicit and explicit.lower() not in ("auto", "inferred", ""):
@@ -127,11 +139,7 @@ def _main_pure(deck, home: Path) -> int:
 
     boxes = np.array([(r[:, 0].min(), r[:, 0].max(), r[:, 1].min(), r[:, 1].max())
                       for r, _ in kept_rings]) if n else np.zeros((0, 4))
-    paths = None
     if n:
-        from matplotlib.path import Path as MplPath
-
-        paths = [MplPath(r) for r, _ in kept_rings]
         cell = max(float(np.median(boxes[:, 1] - boxes[:, 0])), 1e-9)
         grid: dict = {}
         for i in range(n):
@@ -163,8 +171,8 @@ def _main_pure(deck, home: Path) -> int:
             a, b = boxes[i], boxes[j]
             if a[0] > b[1] or b[0] > a[1] or a[2] > b[3] or b[2] > a[3]:
                 return False
-            if (paths[i].contains_points(kept_rings[j][0]).any()
-                    or paths[j].contains_points(kept_rings[i][0]).any()):
+            if (_points_in_ring(kept_rings[i][0], kept_rings[j][0]).any()
+                    or _points_in_ring(kept_rings[j][0], kept_rings[i][0]).any()):
                 return True
             # crossing shapes (plus-sign overlap) have no contained vertex
             return _edges_cross(kept_rings[i][0], kept_rings[j][0])
@@ -209,7 +217,10 @@ def _main_pure(deck, home: Path) -> int:
         write_polygon_shp(shp_out, [r for r, _ in kept_rings], heights=heights)
         try:
             import matplotlib
-
+        except ImportError:
+            print(f"[luwcut] wrote {shp_out.name} (preview PNG skipped: "
+                  "matplotlib is not installed)")
+        else:
             matplotlib.use("Agg")
             import matplotlib.pyplot as plt
 
@@ -222,9 +233,7 @@ def _main_pure(deck, home: Path) -> int:
             fig.savefig(home / "proj_temp" / f"{casename}_buildings.png",
                         dpi=110, bbox_inches="tight")
             plt.close(fig)
-        except Exception:
-            pass
-        print(f"[luwcut] wrote {shp_out.name} + preview PNG")
+            print(f"[luwcut] wrote {shp_out.name} + preview PNG")
     print(f"[luwcut] wrote buildings.csv: {kept} footprints, "
           f"{merged} merged into overlap clusters "
           f"({dropped} dropped: degenerate/outside/under-height)")

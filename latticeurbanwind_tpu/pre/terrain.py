@@ -2,12 +2,12 @@
 
 Clean-room equivalent of the reference's terrain voxelization backends
 (reference: bridge_core/3_voxelization.py:340-790 CPU paths and
-bridge_core/terr_voxel_gpu.py numba.cuda kriging kernel).  The TPU analog of
-the CUDA kriging kernel is a fully batched jnp program: per-target K-nearest
+bridge_core/terr_voxel_gpu.py numba.cuda kriging kernel).  The analog of
+the CUDA kriging kernel here is a fully batched jnp program: per-target K-nearest
 DEM neighbors, exponential-variogram ordinary-kriging systems solved as one
-batched (K+1)x(K+1) linear solve — MXU-shaped instead of per-thread Gaussian
-elimination.  Falls back to numpy on CPU-only environments, and to IDW when
-a kriging system is singular.
+batched (K+1)x(K+1) linear solve instead of per-thread Gaussian
+elimination (`use_jax=False` solves with numpy), with IDW where a kriging
+system is singular.
 """
 
 from __future__ import annotations
@@ -86,15 +86,11 @@ def kriging_interpolate(points_xy: np.ndarray, values: np.ndarray,
     b[:, :K] = gamma(dist)
 
     if use_jax:
-        try:
-            import jax.numpy as jnp
+        import jax.numpy as jnp
 
-            sol = np.asarray(jnp.linalg.solve(jnp.asarray(A), jnp.asarray(b[..., None])))[..., 0]
-        except Exception:
-            sol = None
+        sol = np.asarray(jnp.linalg.solve(jnp.asarray(A),
+                                          jnp.asarray(b[..., None])))[..., 0]
     else:
-        sol = None
-    if sol is None:
         try:
             sol = np.linalg.solve(A, b[..., None])[..., 0]
         except np.linalg.LinAlgError:

@@ -107,12 +107,12 @@ def storage_from_deck(deck: DeckDocument) -> str:
     """DDF storage codec for solver runs.
 
     The reference stores DDFs as FP16C (1-4-11 custom float, defines.hpp:14)
-    by default, with FP16S/FP32 options.  On TPU the default here is bf16 —
-    same 2-byte footprint and HBM traffic, native VPU converts.  All four
-    codecs ride the Pallas performance tier: `f16` (FP16S analog) and
-    `fp16c` (1-4-11, extra mantissa bits for low-velocity accuracy) run
-    through software bit codecs inside the kernel (ops/stream_collide.py);
-    `f32` is exact arithmetic at double footprint.
+    by default, with FP16S/FP32 options.  The default here is bf16 — same
+    2-byte footprint and memory traffic, native hardware converts.  All four
+    codecs run in both step tiers: `f16` (FP16S analog) and `fp16c` (1-4-11,
+    extra mantissa bits for low-velocity accuracy) through the shared codecs
+    of lbm/state.py, which the GPU kernel applies in-kernel; `f32` is exact
+    arithmetic at double footprint.
     """
     raw = (deck.get_text("lbm_storage", "bf16") or "bf16").strip().lower()
     if raw not in ("bf16", "f16", "fp16c", "f32"):

@@ -51,7 +51,6 @@ def checkpoint_path(parent: Path, datetime_tag: str, prefix: str = "") -> Path:
             / f"{prefix}{datetime_tag}.ckpt.npz")
 
 
-_FBC_FIELDS = ("uw", "ue", "us", "un", "ut", "ub", "tt")
 _SHARD_SEP = "@"   # shard block key: "<name>@<start0>_<start1>_..."
 
 
@@ -96,12 +95,7 @@ def save_checkpoint(path: Path, state: LBMState, *, step: int,
                     avg: Optional[AvgState] = None,
                     avg_samples: int = 0,
                     probes: Optional[list] = None,
-                    meta: Optional[dict] = None,
-                    fbc=None) -> Path:
-    """`fbc`: the runner's loop-carried FaceBC (nudge/sponge face targets,
-    refreshed in-loop by the VK inlet).  Without it a resumed VK+nudge run
-    nudges toward the INITIAL face values for up to update_stride steps
-    until the next anchor refresh — serializing it makes resume bit-exact."""
+                    meta: Optional[dict] = None) -> Path:
     import jax
 
     path = Path(path)
@@ -110,11 +104,6 @@ def save_checkpoint(path: Path, state: LBMState, *, step: int,
     arrays: Dict[str, object] = {
         "fi": state.fi, "rho": state.rho, "u": state.u, "flags": state.flags,
     }
-    if fbc is not None:
-        for k in _FBC_FIELDS:
-            v = getattr(fbc, k)
-            if v is not None:
-                arrays[f"fbc_{k}"] = v
     if state.gi is not None:
         arrays["gi"] = state.gi
         arrays["T"] = state.T
@@ -270,6 +259,9 @@ def load_checkpoint(path: Path, *, expect_shape=None, probes: Optional[list] = N
                     ) -> Tuple[LBMState, int, Optional[AvgState], int, dict]:
     """Returns (state, step, avg_or_None, avg_samples, meta).
 
+    Entries the current state does not hold (the `fbc_*` face targets that
+    older checkpoints carry) are ignored.
+
     `expect_shape`: current case grid (Z, Y, X) — a saved checkpoint for a
     different grid raises ValueError instead of a cryptic jit shape error.
     `probes`: GridProbe list to refill with the saved sample buffers.
@@ -323,20 +315,3 @@ def load_checkpoint(path: Path, *, expect_shape=None, probes: Optional[list] = N
             p.series = [s for s in arrs[f"probe{i}_series"]]
     return state, header["step"], avg, header["avg_samples"], header["meta"]
 
-
-def load_fbc(path: Path):
-    """Restore the saved FaceBC carried targets, or None if absent."""
-    import jax.numpy as jnp
-
-    from ..ops.stream_collide import FaceBC
-
-    path = Path(path)
-    want = {f"fbc_{k}" for k in _FBC_FIELDS}
-    with np.load(path) as z:
-        header = _read_header(z)
-        arrs = _assemble(path, z, header, want=want)
-    if "fbc_uw" not in arrs:
-        return None
-    vals = {k: (jnp.asarray(arrs[f"fbc_{k}"]) if f"fbc_{k}" in arrs else None)
-            for k in _FBC_FIELDS}
-    return FaceBC(**vals)

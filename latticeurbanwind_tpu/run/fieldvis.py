@@ -139,7 +139,7 @@ def raycast_field(scalar: np.ndarray, origins: np.ndarray, dirs: np.ndarray,
                   ) -> Tuple[np.ndarray, np.ndarray]:
     """Volumetric weighted-mean raycast of a scalar field.
 
-    The TPU-framework analog of ray_grid_traverse_sum + graphics_field_rt
+    The analog of ray_grid_traverse_sum + graphics_field_rt
     (kernel.cpp:2786-2888): every ray accumulates ``sum += w * v`` and
     ``wsum += w`` over in-grid samples (deviation weight per mode), colors
     the weighted mean through the mode's colorscale, and alpha-blends over

@@ -39,7 +39,7 @@ from ..bc.profile import (
     load_profile_dat, profile_boundary_fields,
 )
 from .driver import RunResult, SolverCase, run_case
-from .sizing import apply_fast_tier, effective_ngpu, plan_grid
+from .sizing import plan_grid, sizing_tier
 
 
 def _format_tag(v: float) -> str:
@@ -188,10 +188,8 @@ def run_profile_mode(deck_path: Path | str, *, impl: str = "auto",
         storage=storage, thermal=False,
         sponge_thickness_m=deck.get_float("sponge_thickness_m", 200.0) or 0.0,
         sponge_enabled=sponge_on,
+        tier=sizing_tier(impl, False, n_devices),
     )
-    eff_split = effective_ngpu(ngpu)
-    plan = apply_fast_tier(plan, thermal=False, dy=eff_split[1],
-                           dx=eff_split[0])
     units = anchor_units(plan.cell_m, si_ref_u)
     u_scale = LBM_REF_U / si_ref_u
 
@@ -284,7 +282,6 @@ def run_profile_mode(deck_path: Path | str, *, impl: str = "auto",
             config=config, forcing=forcing, state=state, dyn=dyn, units=units,
             cell_m=plan.cell_m, parent=parent, datetime=datetime_tag,
             vtk_prefix=prefix, nz_out=plan.nz_core if plan.sponge_extended else 0,
-            ny_out=plan.ny_out,
             settings=settings, impl=impl, ngpu=tuple(int(v) for v in (list(ngpu) + [1, 1, 1])[:3]), pre_step=pre_step,
         )
         if not quiet:
@@ -320,16 +317,15 @@ def run_datagen_mode(deck_path: Path | str, *, impl: str = "auto",
     cell_size = deck.get_float("cell_size")
     memory_mb = deck.get_int("gpu_memory", 20000)
     ngpu = deck.get_int_list("n_gpu") or [1, 1, 1]
+    n_devices = int(np.prod(ngpu))
     plan = plan_grid(
         si_size,
         cell_m=cell_size if mesh_control == "cell_size" and cell_size else None,
-        memory_mb=memory_mb, n_devices=int(np.prod(ngpu)),
+        memory_mb=memory_mb, n_devices=n_devices,
         storage=storage, thermal=False,
         sponge_thickness_m=0.0, sponge_enabled=False,
+        tier=sizing_tier(impl, False, n_devices),
     )
-    eff_split = effective_ngpu(ngpu)
-    plan = apply_fast_tier(plan, thermal=False, dy=eff_split[1],
-                           dx=eff_split[0])
     units = anchor_units(plan.cell_m, si_ref_u)
     u_scale = LBM_REF_U / si_ref_u
 
@@ -384,7 +380,7 @@ def run_datagen_mode(deck_path: Path | str, *, impl: str = "auto",
             case = SolverCase(
                 config=case_config, forcing=forcing, state=state, dyn=dyn, units=units,
                 cell_m=plan.cell_m, parent=parent, datetime=datetime_tag,
-                vtk_prefix=prefix, ny_out=plan.ny_out,
+                vtk_prefix=prefix,
                 settings=settings, impl=impl, ngpu=tuple(int(v) for v in (list(ngpu) + [1, 1, 1])[:3]),
             )
             if not quiet:
@@ -420,6 +416,9 @@ def _flush_case_parallel(pending: List[SolverCase], results: List[RunResult],
 
 
 def run_deck(deck_path: Path | str, **kw) -> List[RunResult]:
+    from ..utils.accelerator import configure_compile_cache
+
+    configure_compile_cache()
     mode = deck_mode_from_path(deck_path)
     if mode == "luwpf":
         return run_profile_mode(deck_path, **kw)

@@ -48,7 +48,7 @@ from .case import (
 )
 from .driver import RunResult, SolverCase, run_case
 from .modes import _find_case_stl, _voxelize_case
-from .sizing import apply_fast_tier, effective_ngpu, plan_grid
+from .sizing import plan_grid, sizing_tier
 
 
 def _boundary_queries(shape, side_ref_z_cap: int):
@@ -107,18 +107,17 @@ def run_standard_mode(deck_path: Path | str, *, impl: str = "auto",
     mesh_control = (deck.get_text("mesh_control", "gpu_memory") or "gpu_memory").lower()
     cell_size = deck.get_float("cell_size")
     ngpu = deck.get_int_list("n_gpu") or [1, 1, 1]
+    n_devices = int(np.prod(ngpu))
     storage = storage_from_deck(deck)
     plan = plan_grid(
         si_size,
         cell_m=cell_size if mesh_control == "cell_size" and cell_size else None,
         memory_mb=deck.get_int("gpu_memory", 20000),
-        n_devices=int(np.prod(ngpu)), storage=storage, thermal=use_temperature,
+        n_devices=n_devices, storage=storage, thermal=use_temperature,
         sponge_thickness_m=deck.get_float("sponge_thickness_m", 200.0) or 0.0,
         sponge_enabled=sponge_on,
+        tier=sizing_tier(impl, use_temperature, n_devices),
     )
-    eff_split = effective_ngpu(ngpu)
-    plan = apply_fast_tier(plan, thermal=use_temperature,
-                           dy=eff_split[1], dx=eff_split[0])
     units = anchor_units(plan.cell_m, si_ref_u, temp_scale_k=temp_scale,
                          temp_ref_k=temp_ref)
     u_scale = LBM_REF_U / si_ref_u
@@ -242,14 +241,14 @@ def run_standard_mode(deck_path: Path | str, *, impl: str = "auto",
             from .probe_parse import resolve_probes
 
             model = TransformModel.from_deck(
-                deck, (plan.nx * plan.cell_m, plan.ny_core * plan.cell_m))
+                deck, (plan.nx * plan.cell_m, plan.ny * plan.cell_m))
             lon_pair = deck.get_pair("cut_lon_manual")
             lat_pair = deck.get_pair("cut_lat_manual")
             center = (0.5 * sum(lon_pair), 0.5 * sum(lat_pair))
             probes = resolve_probes(
                 probes_raw, model=model, center_lonlat=center, flags=flags,
                 cell_m=plan.cell_m,
-                si_size_xy=(plan.nx * plan.cell_m, plan.ny_core * plan.cell_m))
+                si_size_xy=(plan.nx * plan.cell_m, plan.ny * plan.cell_m))
             if probes and not quiet:
                 print(f"| Probes          | {len(probes)} column(s) resolved")
         except ValueError as e:
@@ -260,7 +259,6 @@ def run_standard_mode(deck_path: Path | str, *, impl: str = "auto",
         config=config, forcing=forcing, state=state, dyn=dyn, units=units,
         cell_m=plan.cell_m, parent=parent, datetime=datetime_tag,
         vtk_prefix="", nz_out=plan.nz_core if plan.sponge_extended else 0,
-        ny_out=plan.ny_out,
         settings=run_settings_from_deck(deck), impl=impl,
         thermal_output=use_temperature, pre_step=pre_step, probes=probes,
         ngpu=tuple(int(v) for v in (list(ngpu) + [1, 1, 1])[:3]),

@@ -1,9 +1,12 @@
-"""Accelerator environment probing — TPU analog of core/accelerator_runtime.py.
+"""Accelerator environment probing — analog of core/accelerator_runtime.py.
 
 The reference probes/repairs CUDA wheel layouts for numba and checks OpenCL
-ICDs; here we probe the JAX backend, TPU topology/memory/bandwidth, the
+ICDs; here we probe the JAX backend, its devices (kind, count, memory), the
 persistent compilation cache, and the native toolchain, emitting the same
 style of JSON environment report the pipeline logs.
+
+The persistent compilation cache is configured here and nowhere else
+(`configure_compile_cache`).
 """
 
 from __future__ import annotations
@@ -12,18 +15,56 @@ import json
 import os
 import shutil
 import sys
+from pathlib import Path
 from typing import Optional
 
+# <checkout>/.jax_cache, listed in .gitignore
+DEFAULT_CACHE_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
 
-def probe_tpu_environment() -> dict:
+
+def compile_cache_dir() -> str:
+    """`JAX_COMPILATION_CACHE_DIR` when set, else `<checkout>/.jax_cache`."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or str(DEFAULT_CACHE_DIR)
+
+
+def configure_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at `compile_cache_dir()`.
+
+    Production grids take tens of seconds to compile; the cache makes later
+    processes start in seconds.  Called by the solver entry points before
+    they compile."""
+    import jax
+
+    path = compile_cache_dir()
+    os.makedirs(path, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return path
+
+
+def device_report() -> dict:
+    """Backend and device facts as JAX reports them: kind, count, memory."""
+    import jax
+
+    devices = jax.devices()
+    report = {
+        "backend": jax.default_backend(),
+        "device_kind": devices[0].device_kind,
+        "device_count": len(devices),
+        "devices": [str(d) for d in devices],
+        "memory_bytes_limit": None,
+    }
+    stats = devices[0].memory_stats() or {}
+    if "bytes_limit" in stats:
+        report["memory_bytes_limit"] = int(stats["bytes_limit"])
+    return report
+
+
+def probe_environment() -> dict:
     report = {
         "python": sys.version.split()[0],
         "jax": None,
-        "backend": None,
-        "devices": [],
-        "tpu": None,
-        "compilation_cache": os.environ.get("JAX_COMPILATION_CACHE_DIR")
-        or "unset",
+        "compilation_cache": compile_cache_dir(),
         "native_toolchain": {
             "g++": shutil.which("g++"),
             "cmake": shutil.which("cmake"),
@@ -35,31 +76,15 @@ def probe_tpu_environment() -> dict:
         import jax
 
         report["jax"] = jax.__version__
-        report["backend"] = jax.default_backend()
-        report["devices"] = [str(d) for d in jax.devices()]
-    except Exception as e:
+        report.update(device_report())
+    except Exception as e:   # noqa: BLE001 — the report names the failure
         report["errors"].append(f"jax: {type(e).__name__}: {e}")
         return report
-    if report["backend"] == "tpu":
-        try:
-            from jax.experimental.pallas import tpu as pltpu
-
-            info = pltpu.get_tpu_info()
-            report["tpu"] = {
-                "chip": str(info.chip_version),
-                "cores": info.num_cores,
-                "hbm_gib": round(info.hbm_capacity_bytes / 2**30, 1),
-                "vmem_mib": round(info.vmem_capacity_bytes / 2**20),
-                "nominal_bw_gbps": round(info.mem_bw_bytes_per_second / 1e9),
-                "bf16_tops": round(info.bf16_ops_per_second / 1e12),
-            }
-        except Exception as e:
-            report["errors"].append(f"tpu info: {type(e).__name__}: {e}")
     try:
         from ..utils.native import load
 
         report["native_library"] = "loaded" if load() is not None else "unavailable"
-    except Exception as e:
+    except Exception as e:   # noqa: BLE001
         report["errors"].append(f"native: {type(e).__name__}: {e}")
     return report
 
@@ -67,18 +92,13 @@ def probe_tpu_environment() -> dict:
 def apply_runtime_environment(cache_dir: Optional[str] = None) -> dict:
     """Set up the recommended runtime env (persistent compile cache)."""
     if cache_dir:
-        os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", cache_dir)
-        try:
-            import jax
-
-            jax.config.update("jax_compilation_cache_dir", cache_dir)
-        except Exception:
-            pass
-    return probe_tpu_environment()
+        os.environ["JAX_COMPILATION_CACHE_DIR"] = cache_dir
+    configure_compile_cache()
+    return probe_environment()
 
 
 def main(argv=None) -> int:
-    print(json.dumps(probe_tpu_environment(), indent=2))
+    print(json.dumps(probe_environment(), indent=2))
     return 0
 
 

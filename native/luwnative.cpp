@@ -1,6 +1,6 @@
 // Native runtime components for latticeurbanwind_tpu.
 //
-// TPU-native analog of the reference's C++ host runtime pieces: the
+// Analog of the reference's C++ host runtime pieces: the
 // triangle-parity voxelizer (reference does this as an OpenCL kernel,
 // kernel.cpp:2381-2478) and the big-endian VTK payload encoder
 // (reference: utilities.hpp reverse_bytes loop in lbm.hpp write_vtk).

@@ -184,7 +184,7 @@ def test_reference_speed_normalized_profile():
 
 
 def test_production_run_record_pinned():
-    """The TPU production study record (docs/casee_validation.json) stays at
+    """The production study record (docs/casee_validation.json) stays at
     or above the achieved agreement: the comparison pipeline reading this
     file is the same code path luwaij runs, so a silent regression in the
     xls parsing / sampling / statistics would show up as a changed record.

@@ -23,7 +23,7 @@ from latticeurbanwind_tpu.deck import (
 def test_schema_inventory():
     assert len(SECTION_ORDER) == 9
     assert len(FIELDS) == 82  # 77 reference fields + lbm_storage +
-    # frame_output + case_parallel + ground_z0 + building_z0 (TPU extras)
+    # frame_output + case_parallel + ground_z0 + building_z0 (extensions)
     assert SECTION_ORDER[0] == "project" and SECTION_ORDER[-1] == "custom"
 
 

@@ -15,20 +15,24 @@ def test_dgprepare_reproduces_case_e_extents(tmp_path):
 
     case = tmp_path / "dg"
     (case / "building_db").mkdir(parents=True)
-    shutil.copy(
-        "/root/reference/examples/example_ProfileResearch_noDEM/building_db/rawbuildings.stl",
-        case / "building_db" / "rawbuildings.stl")
+    example = (Path(__file__).resolve().parents[1] / "examples"
+               / "example_ProfileResearch_noDEM")
+    shutil.copy(example / "building_db" / "rawbuildings.stl",
+                case / "building_db" / "rawbuildings.stl")
     (case / "conf.luwpf").write_text(
-        "casename = CaseE\nbase_height = 20.0\nz_limit = 250\n"
-        "x_exp_rat = 5\ny_exp_rat = 5\nangle = [0]\n")
+        "casename = CityDemo\nbase_height = 16.0\nz_limit = 120\n"
+        "x_exp_rat = 3\ny_exp_rat = 3\nangle = [0]\n")
     assert dgprepare([str(case / "conf.luwpf")]) == 0
     deck = load_deck(case / "conf.luwpf")
-    # must reproduce the example's generated extents (conf.luwpf in the
-    # reference repo records si_x_cfd=[0, 2022.500153], si_y=[0, 1996.500092])
-    assert deck.get_pair("si_x_cfd")[1] == pytest.approx(2022.5, abs=0.01)
-    assert deck.get_pair("si_y_cfd")[1] == pytest.approx(1996.5, abs=0.01)
-    assert deck.get_pair("si_z_cfd") == (0.0, 270.0)
-    stl = read_stl(case / "proj_temp" / "CaseE_PF.stl")
+    # must reproduce the extents the example deck records
+    # (si_x_cfd = [0, 636], si_y_cfd = [0, 636], si_z_cfd = [0, 136])
+    ref = load_deck(example / "conf.luwpf")
+    assert deck.get_pair("si_x_cfd")[1] == pytest.approx(
+        ref.get_pair("si_x_cfd")[1], abs=0.01)
+    assert deck.get_pair("si_y_cfd")[1] == pytest.approx(
+        ref.get_pair("si_y_cfd")[1], abs=0.01)
+    assert deck.get_pair("si_z_cfd") == ref.get_pair("si_z_cfd")
+    stl = read_stl(case / "proj_temp" / "CityDemo_PF.stl")
     np.testing.assert_allclose(stl.pmin, [0, 0, 0], atol=1e-3)
 
 

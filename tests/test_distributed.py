@@ -20,8 +20,8 @@ _WORKER = textwrap.dedent("""
     os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
     # NOTE: no jax.config/jax.devices before jax.distributed.initialize —
-    # the backend must not exist yet (the worker env has no TPU plugin on
-    # PYTHONPATH, so the JAX_PLATFORMS env var alone is authoritative here)
+    # the backend must not exist yet (the JAX_PLATFORMS env var alone is
+    # authoritative here)
     import jax
     import numpy as np
 
@@ -116,7 +116,6 @@ def test_two_process_dcn_smoke(tmp_path):
             LUW_NUM_PROCESSES="2",
             LUW_PROCESS_ID=str(pid),
             LUW_CKPT=str(tmp_path / "dcn.ckpt.npz"),
-            # keep the workers off any TPU plugin
             PYTHONPATH=repo,
         )
         procs.append(subprocess.Popen(

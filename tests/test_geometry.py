@@ -34,7 +34,11 @@ def test_stl_round_trip(tmp_path):
 
 
 def test_read_reference_example_stl():
-    mesh = read_stl("/root/reference/examples/example_ProfileResearch_noDEM/proj_temp/CaseE_PF.stl")
+    from pathlib import Path
+
+    mesh = read_stl(Path(__file__).resolve().parents[1] / "examples"
+                    / "example_ProfileResearch_noDEM" / "proj_temp"
+                    / "CityDemo_PF.stl")
     assert len(mesh.tris) > 100
     assert np.all(mesh.size > 0)
 

@@ -1,7 +1,7 @@
 """Analytic physics validation for the reference-tier LBM step.
 
 The reference repo has no solver tests (SURVEY.md §4); these establish the
-ground truth the Pallas tier and multi-chip path are later checked against.
+ground truth the GPU kernel and multi-device path are later checked against.
 """
 
 import numpy as np
@@ -275,14 +275,17 @@ def test_fp16c_codec_saturates_overflow():
     # in-range lanes still round-trip exactly
     np.testing.assert_allclose(rt[7:], x[7:], rtol=0, atol=0)
 
-    # the in-kernel codec agrees lane-for-lane with the host codec
+    # the device codec (jnp, also traced inside the GPU kernel) agrees
+    # lane-for-lane with the host (numpy) codec
     import jax
 
-    from latticeurbanwind_tpu.ops.stream_collide import _make_codec
+    from latticeurbanwind_tpu.lbm.state import decode_ddf, encode_ddf
 
-    dec, enc = _make_codec("fp16c")
-    rt_k = np.asarray(jax.jit(lambda v: dec(enc(v).astype(jnp.int32)))(
+    enc_dev = np.asarray(jax.jit(lambda v: encode_ddf(v, "fp16c"))(
         jnp.asarray(x)))
+    np.testing.assert_array_equal(enc_dev, encode_fp16c(x))
+    rt_k = np.asarray(jax.jit(lambda v: decode_ddf(encode_ddf(v, "fp16c"),
+                                                   "fp16c"))(jnp.asarray(x)))
     np.testing.assert_array_equal(rt_k, rt)
 
 
@@ -417,8 +420,6 @@ def test_wall_model_free_slip_preserves_plug_flow():
     horizontal flow over a flat solid floor must stay uniform (free slip) —
     plain bounce-back would dig a boundary layer within a few steps.  The
     Schumann drag is made negligible (cd ~ 0) to isolate the reflection."""
-    from latticeurbanwind_tpu.lbm.fields import update_fields
-
     shape = (10, 8, 16)
     u0 = 0.05
     config = StepConfig(omega=omega_from_nu(0.01), subgrid=False,
@@ -430,7 +431,7 @@ def test_wall_model_free_slip_preserves_plug_flow():
     u[0, 1:] = u0
     state = make_initial_state(shape, config=config, u=u, flags=flags)
     run = make_multi_step(config, n_inner=30)
-    out = update_fields(run(state, dyn_zero()), config, dyn_zero())
+    out = run(state, dyn_zero())
     ux = np.asarray(out.u[0][1:])           # fluid region
     assert np.allclose(ux, u0, atol=1e-5)
 
@@ -438,8 +439,7 @@ def test_wall_model_free_slip_preserves_plug_flow():
     config_bb = StepConfig(omega=omega_from_nu(0.01), subgrid=False,
                            storage="f32")
     state_bb = make_initial_state(shape, config=config_bb, u=u, flags=flags)
-    out_bb = update_fields(make_multi_step(config_bb, n_inner=30)(
-        state_bb, dyn_zero()), config_bb, dyn_zero())
+    out_bb = make_multi_step(config_bb, n_inner=30)(state_bb, dyn_zero())
     assert float(np.mean(np.asarray(out_bb.u[0][1]))) < 0.8 * u0
 
 
@@ -449,8 +449,6 @@ def test_wall_model_schumann_drag_rate():
     layer.  Measured as the momentum DIFFERENCE between a cd run and a
     cd~0 run so the periodic-ceiling bounce-back loss (shared by both)
     cancels."""
-    from latticeurbanwind_tpu.lbm.fields import update_fields
-
     shape = (10, 8, 16)
     u0 = 0.05
     cd = 0.02
@@ -468,78 +466,11 @@ def test_wall_model_schumann_drag_rate():
         out = state
         for _ in range(n):
             out = step(out, dyn_zero())
-        f = update_fields(out, config, dyn_zero())
-        return float(np.sum(np.asarray(f.rho * f.u[0])[1:]))
+        return float(np.sum(np.asarray(out.rho * out.u[0])[1:]))
 
     loss = run(1e-12) - run(cd)
     expected_loss = n * cd * u0 * u0 * 1.0 * shape[1] * shape[2]
     assert 0.7 * expected_loss < loss < 1.3 * expected_loss
-
-
-@pytest.mark.parametrize("thermal,wall_model,storage", [
-    (False, False, "f32"), (False, True, "f32"),
-    (True, False, "bf16"), (False, True, "fp16c"),
-])
-def test_update_fields_chunking_invariance(monkeypatch, thermal, wall_model,
-                                           storage):
-    """update_fields materializes rho/u/T by z-chunk (bounded transients —
-    the monolithic version OOM'd HBM at 71M cells); any chunk size must
-    agree to f32 rounding (XLA fuses/contracts differently per shape, so
-    rare single-ULP deltas are expected), including across chunk seams,
-    the modular z-wrap, the wall-model quads, and the thermal sub-lattice."""
-    import dataclasses
-
-    import jax.numpy as jnp
-
-    from latticeurbanwind_tpu.lbm import fields as F
-    from latticeurbanwind_tpu.lbm.state import DynParams
-
-    from latticeurbanwind_tpu.lbm import (
-        StepConfig, TYPE_E, TYPE_S, TYPE_T, make_initial_state,
-        omega_from_nu,
-    )
-
-    shape = (13, 24, 40)
-    Z, Y, X = shape
-    rng = np.random.default_rng(5)
-    cfg = StepConfig(omega=omega_from_nu(0.03), subgrid=True,
-                     thermal=thermal, omega_t=1.1, beta=0.002,
-                     storage=storage)
-    if wall_model:
-        cfg = dataclasses.replace(cfg, wall_model=True, wall_cd=0.0134)
-    u = 0.02 * rng.standard_normal((3, Z, Y, X)).astype(np.float32)
-    rho = (1.0 + 0.001 * rng.standard_normal(shape)).astype(np.float32)
-    flags = np.zeros(shape, np.uint8)
-    flags[-1] = TYPE_E
-    flags[:, 0, :] |= TYPE_E
-    flags[:, -1, :] |= TYPE_E
-    flags[:, :, 0] |= TYPE_E
-    flags[:, :, -1] |= TYPE_E
-    flags[0] = TYPE_S
-    flags[2, 10:20, 8:12] = TYPE_S
-    if thermal:
-        flags[:, :, 0] |= TYPE_T
-    T = ((1.0 + 0.01 * rng.standard_normal(shape)).astype(np.float32)
-         if thermal else None)
-    state = make_initial_state(shape, config=cfg, rho=rho, u=u,
-                               flags=flags, T=T)
-    dyn = DynParams(force=jnp.array([1e-5, 0.0, -2e-5]),
-                    omega_coriolis=jnp.array([0.0, 1e-5, 2e-5]))
-
-    outs = []
-    for cells in ("999999999", str(3 * 24 * 40), str(5 * 24 * 40)):
-        monkeypatch.setenv("LUW_UPDATE_CHUNK_CELLS", cells)
-        outs.append(F.update_fields(state, cfg, dyn))
-    for o in outs[1:]:
-        np.testing.assert_allclose(np.asarray(o.rho),
-                                   np.asarray(outs[0].rho),
-                                   rtol=1e-6, atol=1e-9)
-        np.testing.assert_allclose(np.asarray(o.u), np.asarray(outs[0].u),
-                                   rtol=1e-6, atol=1e-9)
-        if thermal:
-            np.testing.assert_allclose(np.asarray(o.T),
-                                       np.asarray(outs[0].T),
-                                       rtol=1e-6, atol=1e-9)
 
 
 def test_wall_sides_preserves_tangential_flow():
@@ -553,7 +484,6 @@ def test_wall_sides_preserves_tangential_flow():
     import jax
     import jax.numpy as jnp
 
-    from latticeurbanwind_tpu.lbm import fields as F
     from latticeurbanwind_tpu.lbm.reference import make_step
 
     shape = (8, 32, 16)
@@ -570,8 +500,7 @@ def test_wall_sides_preserves_tangential_flow():
         step = jax.jit(make_step(cfg))
         for _ in range(150):
             st = step(st, dyn)
-        out = F.update_fields(st, cfg, dyn)
-        return float(out.u[1, 4, 16, 1])     # v at the first fluid cell
+        return float(st.u[1, 4, 16, 1])     # v at the first fluid cell
 
     v_bb = run(base)
     v_slip = run(dataclasses.replace(base, wall_sides=True,

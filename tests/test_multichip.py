@@ -79,3 +79,36 @@ def test_sharded_thermal_step_matches_single():
     out = jax.jit(step, out_shardings=state_sharding(mesh, thermal=True))(sharded, dyn)
     np.testing.assert_allclose(np.asarray(out.T), np.asarray(ref.T), atol=1e-6)
     np.testing.assert_allclose(np.asarray(out.u), np.asarray(ref.u), atol=1e-6)
+
+
+@pytest.mark.parametrize("ngpu", [(1, 1, 4), (2, 2, 1), (2, 1, 2)])
+def test_run_case_split_matches_single(tmp_path, ngpu):
+    """The driver's n_gpu path (GSPMD over the jnp step, with averaging
+    events) reproduces the single-device run of the same case."""
+    from latticeurbanwind_tpu.run.driver import RunSettings, SolverCase, run_case
+    from latticeurbanwind_tpu.units import Units
+
+    def run(split, sub):
+        config, state, forcing = _case((8, 8, 16))
+        units = Units()
+        units.set_m_kg_s(1.0, 0.1, 1.0, 20.0, 8.0, 1.225)
+        (tmp_path / sub).mkdir()
+        case = SolverCase(
+            config=config, forcing=forcing, state=state,
+            dyn=DynParams(force=jnp.zeros(3),
+                          omega_coriolis=jnp.array([0.0, 1e-5, 2e-5])),
+            units=units, cell_m=20.0, parent=tmp_path / sub, datetime="0",
+            ngpu=split,
+            settings=RunSettings(run_nstep=12, purge_avg=6,
+                                 purge_avg_stride=2, chunk=4,
+                                 snapshots=False))
+        r = run_case(case, quiet=True)
+        return r.state, r.avg
+
+    s1, a1 = run((1, 1, 1), "single")
+    sn, an = run(ngpu, "split")
+    assert len(sn.fi.sharding.device_set) == int(np.prod(ngpu))
+    np.testing.assert_allclose(np.asarray(sn.u), np.asarray(s1.u),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(np.asarray(an.mean_u), np.asarray(a1.mean_u),
+                               atol=1e-6, rtol=0)

@@ -597,3 +597,17 @@ def test_cubic_regrid_beats_nearest_on_rotated_grid():
     assert np.isfinite(out).all()
     assert cubic_err < 1e-3, cubic_err
     assert cubic_err < nearest_err / 10, (cubic_err, nearest_err)
+
+
+def test_points_in_ring_matches_matplotlib_path():
+    """luwcut's overlap test needs no matplotlib: its even-odd point-in-
+    polygon agrees with matplotlib.path on a concave ring."""
+    from matplotlib.path import Path as MplPath
+
+    from latticeurbanwind_tpu.pre.shpcutter import _points_in_ring
+
+    ring = np.array([[0, 0], [10, 0], [10, 10], [5, 4], [0, 10]], float)
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(-2, 12, size=(500, 2))
+    np.testing.assert_array_equal(_points_in_ring(ring, pts),
+                                  MplPath(ring).contains_points(pts))

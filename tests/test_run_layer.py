@@ -12,10 +12,13 @@ from latticeurbanwind_tpu.bc.profile import (
     load_profile_dat, profile_boundary_fields,
 )
 from latticeurbanwind_tpu.lbm.state import TYPE_E, TYPE_S
-from latticeurbanwind_tpu.run import plan_grid, vtk_timestep_name
+from latticeurbanwind_tpu.run import bytes_per_cell, plan_grid, vtk_timestep_name
 from latticeurbanwind_tpu.run.welford import (
     init_avg, variance_sum_u, welford_update,
 )
+
+EXAMPLE = (Path(__file__).resolve().parents[1] / "examples"
+           / "example_ProfileResearch_noDEM")
 
 
 def test_plan_grid_cell_size_mode():
@@ -34,21 +37,55 @@ def test_plan_grid_memory_mode_monotone():
     assert big.bytes_per_device <= 8000 * 1024 * 1024
 
 
+@pytest.mark.parametrize("storage", ["f32", "bf16", "f16", "fp16c"])
+def test_bytes_per_cell_follows_the_tier(storage):
+    """The kernel holds its input and output state; the jnp step adds its
+    intermediates, and thermal adds the D3Q7 pair on either tier."""
+    s = 4 if storage == "f32" else 2
+    kernel = bytes_per_cell(storage, tier="pallas")
+    assert kernel == 2 * 19 * s + 2 * 16 + 1 + 5 + 20
+    assert bytes_per_cell(storage, tier="reference") > kernel
+    assert (bytes_per_cell(storage, thermal=True, tier="reference")
+            > bytes_per_cell(storage, tier="reference"))
+    with pytest.raises(ValueError, match="tier"):
+        bytes_per_cell(storage, tier="fast")
+
+
+def test_plan_grid_sizes_for_the_tier(monkeypatch):
+    """At one budget the jnp step gets a coarser grid than the kernel, and
+    each plan stays within the budget by its own tier's model."""
+    import jax
+
+    from latticeurbanwind_tpu.run.sizing import sizing_tier
+
+    size = (2000.0, 2000.0, 300.0)
+    kern = plan_grid(size, memory_mb=4000, storage="bf16", tier="pallas")
+    ref = plan_grid(size, memory_mb=4000, storage="bf16", tier="reference")
+    assert ref.cell_m > kern.cell_m
+    for plan in (kern, ref):
+        assert plan.bytes_per_device <= 4000 * 1024 * 1024
+    assert sizing_tier("auto", False, 1) == "reference"       # CPU
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert sizing_tier("auto", False, 1) == "pallas"
+    assert sizing_tier("auto", True, 1) == "reference"        # thermal
+    assert sizing_tier("auto", False, 4) == "reference"       # n_gpu split
+    assert sizing_tier("reference", False, 1) == "reference"
+
+
 def test_profile_table_against_reference_example():
-    z, u = load_profile_dat(
-        "/root/reference/examples/example_ProfileResearch_noDEM/wind_bc/profile.dat")
-    assert len(z) == 12 and u.max() == pytest.approx(7.8)
-    table = ProfileTable.build(z, u, table_top_si=270.0, domain_agl_si=250.0)
+    z, u = load_profile_dat(EXAMPLE / "wind_bc" / "profile.dat")
+    assert len(z) == 11 and u.max() == pytest.approx(4.0934)
+    table = ProfileTable.build(z, u, table_top_si=220.0, domain_agl_si=200.0)
     # exact at sample points
-    assert table.speed_at_agl(np.array([25.0]))[0] == pytest.approx(4.3602, abs=1e-3)
-    assert table.speed_at_agl(np.array([250.0]))[0] == pytest.approx(7.8, abs=1e-3)
+    assert table.speed_at_agl(np.array([20.0]))[0] == pytest.approx(2.5361, abs=1e-3)
+    assert table.speed_at_agl(np.array([200.0]))[0] == pytest.approx(4.0934, abs=1e-3)
     # clamped above the last sample, zero at/below ground
-    assert table.speed_at_agl(np.array([269.0]))[0] == pytest.approx(7.8, abs=1e-3)
+    assert table.speed_at_agl(np.array([219.0]))[0] == pytest.approx(4.0934, abs=1e-3)
     assert table.speed_at_agl(np.array([0.0]))[0] == 0.0
     assert table.speed_at_agl(np.array([-3.0]))[0] == 0.0
     # monotone-ish between samples
-    mid = table.speed_at_agl(np.array([60.0]))[0]
-    assert 5.1 < mid < 5.7
+    mid = table.speed_at_agl(np.array([50.0]))[0]
+    assert 3.0011 < mid < 3.2752
 
 
 def test_profile_normalized_z_scaling():
@@ -134,7 +171,7 @@ def test_profile_mode_end_to_end(tmp_path):
     from latticeurbanwind_tpu.io import read_structured_points
     from latticeurbanwind_tpu.run import run_deck
 
-    src = Path("/root/reference/examples/example_ProfileResearch_noDEM")
+    src = EXAMPLE
     case = tmp_path / "caseE"
     shutil.copytree(src, case)
     deck = load_deck(case / "conf.luwpf")
@@ -155,7 +192,7 @@ def test_profile_mode_end_to_end(tmp_path):
     meta, fields = read_structured_points(avg_files[0])
     assert set(fields) >= {"u_avg", "rho_avg", "fluid", "tke", "TI", "TLS"}
     # single-angle: standard naming without ANG_ prefix
-    assert avg_files[0].name.startswith("20251222120000_avg-")
+    assert avg_files[0].name.startswith("20260101120000_avg-")
     u = fields["u_avg"]
     fluid = fields["fluid"] > 0.5
     assert u[1][fluid].mean() < -1.0   # angle 0 -> -y flow in SI m/s
@@ -171,7 +208,7 @@ def test_profile_mode_multichip_matches_single(tmp_path):
     from latticeurbanwind_tpu.io import read_structured_points
     from latticeurbanwind_tpu.run import run_deck
 
-    src = Path("/root/reference/examples/example_ProfileResearch_noDEM")
+    src = EXAMPLE
     outs = {}
     for tag, ngpu in (("single", [1, 1, 1]), ("sharded", [1, 1, 2])):
         case = tmp_path / tag

@@ -10,7 +10,7 @@ physics tests (tests/test_lbm_physics.py) check qualitatively:
     halfway-bounce-back analytic parabola, second-order in the wall-normal
     resolution.
 
-Run: python tools/validation_study.py  (CPU or TPU; a few minutes)
+Run: python tools/validation_study.py  (CPU or GPU; a few minutes)
 """
 
 from __future__ import annotations
